@@ -1,6 +1,6 @@
-"""emdee_tpu — a TPU-native molecular-dynamics framework.
+"""emdee_tpu — a molecular-dynamics framework in JAX.
 
-A from-scratch re-design (JAX / XLA / Pallas / pjit) of the capabilities of the
+A from-scratch re-design (JAX / XLA / Pallas) of the capabilities of the
 reference engine craabreu/EmDee.jl (Julia + CUDA):
 
 - Molecular system setup: OpenMM-style force-field XML parsing, PDB/XYZ input,
@@ -9,14 +9,16 @@ reference engine craabreu/EmDee.jl (Julia + CUDA):
 - Nonbonded Lennard-Jones force/energy/virial evaluation with a switched
   potential and minimum-image PBC (reference: src/lennard_jones.jl,
   src/nonbonded.jl).
-- O(N) neighbor search via fixed-shape bin-and-sort cell lists (the TPU-shaped
-  replacement for the reference's linked-cell CUDA kernels, src/cells.jl).
+- O(N) neighbor search via fixed-shape bin-and-sort cell lists (the
+  fixed-shape replacement for the reference's linked-cell CUDA kernels,
+  src/cells.jl), and a dense cell-slot engine whose pair pass runs as one
+  Pallas-Triton kernel on the GPU.
 
 Beyond reference parity the framework adds what a production MD engine needs
 and the reference lacks: velocity-Verlet integrators with `lax.scan` rollouts,
 observables, checkpoint/resume, trajectory I/O, bonded-force evaluation, and
-multi-chip spatial domain decomposition over a `jax.sharding.Mesh` with halo
-exchange on ICI.
+multi-device spatial domain decomposition over a `jax.sharding.Mesh` with
+halo exchange by collective permutes.
 
 Everything device-side is float32 (matching the reference's device precision,
 vec3.jl:3-7) and shape-static under `jax.jit`.
@@ -52,14 +54,6 @@ from emdee_tpu.neighbors.cell_dense import (
     reconfigure_dense_state,
     suggest_cell_dense_config,
     suggest_rebin_interval,
-)
-from emdee_tpu.neighbors.cell_dense_straggler import (
-    StragglerConfig,
-    StragglerState,
-    gather_straggler_atoms,
-    make_straggler_sim,
-    straggler_init,
-    suggest_straggler_config,
 )
 from emdee_tpu.neighbors.cell_dense_molecular import (
     dense_sim_from_system,
@@ -115,12 +109,6 @@ __all__ = [
     "reconfigure_dense_state",
     "make_cell_dense_sim",
     "suggest_cell_dense_config",
-    "StragglerConfig",
-    "StragglerState",
-    "gather_straggler_atoms",
-    "make_straggler_sim",
-    "straggler_init",
-    "suggest_straggler_config",
     "suggest_rebin_interval",
     "dense_sim_from_system",
     "make_molecular_dense_sim",

@@ -1,4 +1,4 @@
-"""Core pytree types for the TPU MD engine.
+"""Core pytree types for the MD engine.
 
 The reference keeps state in ad-hoc CuArrays (positions `3×N`, per-atom LJ
 params as an array of structs, nonbonded.jl:109-120).  Here state is a single

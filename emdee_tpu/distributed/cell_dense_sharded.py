@@ -1,7 +1,6 @@
 """Multi-chip dense-cell engine: z-slabs of cells per device.
 
-The production scale-out path (BASELINE config 5: ~1M-atom LJ fluid over a
-TPU slice).  Combines the single-chip dense-cell engine (neighbors by static
+A 1D slab decomposition of the ~1M-atom LJ fluid.  Combines the single-chip dense-cell engine (neighbors by static
 shifts, no gathers in the hot loop) with spatial decomposition:
 
 - The slot grid (cell-major, z slowest) is sharded over a 1D mesh along z:
@@ -10,7 +9,7 @@ shifts, no gathers in the hot loop) with spatial decomposition:
   integrator math partitions trivially.
 - The force pass runs under `shard_map`: each device `ppermute`s its top and
   bottom cell layers to its ring neighbors (one (M², C) layer per direction
-  per field — a few hundred KB on ICI), builds a z-extended local grid, and
+  per field — a few hundred KB), builds a z-extended local grid, and
   evaluates the full 27-stencil with center-only accumulation.  Full-shell
   (each pair computed by both owners) means NO reverse force traffic — the
   one-way halo is the entire communication, the multi-chip analog of the

@@ -3,15 +3,15 @@
 Atom-table formulation: each shard's force pass evaluates its owned rows
 against ALL owned+ghost columns — O(N_shard²), fine for the small/medium
 systems and correctness tests it serves.  The PRODUCTION multi-chip path is
-`distributed.grid_sharded` (3D cell-grid decomposition, per-shard Pallas
-half-shell kernel, O(N)); this module remains as the simplest-possible
+`distributed.grid_sharded` (3D cell-grid decomposition, per-shard
+half-shell pair pass, O(N)); this module remains as the simplest-possible
 sharded reference implementation and the ghost/ownership semantics testbed.
 
 The multi-chip scale-out the reference never had (SURVEY.md §2b): atoms are
 sharded into z-slabs, one per device.  Each step, every device
 
 1. selects the atoms within a halo width of its slab faces and sends them to
-   its ±1 ring neighbors with `jax.lax.ppermute` (ICI traffic only),
+   its ±1 ring neighbors with `jax.lax.ppermute` (neighbour traffic only),
 2. computes forces for its OWNED atoms against owned+ghost candidates — full
    accumulation (each pair evaluated by both owners), so no cross-device
    force reduction is ever needed: the per-owner sum plays the role the
@@ -25,7 +25,7 @@ superset of what the cutoff needs; the `overflow` flag reports any violated
 capacity so the host can re-run with larger slots — never silently.
 
 All shapes are static: per-shard slot capacity and halo capacity are fixed,
-with validity masks (the TPU answer to the reference's undef padding,
+with validity masks (the fixed-shape answer to the reference's undef padding,
 nonbonded.jl:28-38).
 """
 

@@ -1,10 +1,10 @@
 """Device-mesh construction for spatial domain decomposition.
 
 The reference is strictly single-GPU (SURVEY.md §2b: no MPI/NCCL, its only
-"communication" is warp shuffles and atomics).  The TPU-native scale-out axis
-is a `jax.sharding.Mesh`: atoms are sharded into spatial slabs, ghost
-positions ride ICI via `ppermute`, and reductions are `psum` — one level up
-the hierarchy from what shuffles+atomics do intra-GPU.
+"communication" is warp shuffles and atomics).  Here the scale-out axis is a
+`jax.sharding.Mesh`: atoms are sharded into spatial slabs, ghost positions
+move between devices by `ppermute`, and reductions are `psum` — one level up
+the hierarchy from what shuffles+atomics do inside one GPU.
 """
 
 from __future__ import annotations
@@ -23,8 +23,8 @@ def make_mesh(num_devices: Optional[int] = None, devices: Optional[Sequence] = N
     """1D mesh over the atom/slab axis.
 
     MD domain decomposition is communication-light (nearest-neighbor halos),
-    so a 1D ring — which maps onto a TPU torus ring, all traffic on ICI — is
-    the right first topology; 3D meshes only pay off at very large slices.
+    so a 1D ring is the right first topology; `grid_sharded` gives the 3D
+    decomposition.
     """
     if devices is None:
         devices = jax.devices()

@@ -1,7 +1,7 @@
 """Velocity-Verlet integration with `lax.scan` rollouts.
 
 The reference has no integrator (SURVEY.md §0) — this supplies the missing
-time loop, designed TPU-first: one jitted step fuses the half-kicks, drift,
+time loop, designed for an accelerator: one jitted step fuses the half-kicks, drift,
 PBC wrap, and force evaluation; `nve_rollout` scans thousands of steps fully
 on-device so the host never touches the loop.
 

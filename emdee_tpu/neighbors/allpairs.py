@@ -1,12 +1,12 @@
 """All-pairs (O(N²)) nonbonded evaluation.
 
-The TPU-native re-design of the reference's warp-tiled all-pairs CUDA kernel
+The array re-design of the reference's warp-tiled all-pairs CUDA kernel
 (nonbonded.jl:44-120).  Where the reference enumerates n(n+1)/2 32×32 atom
 tiles, rotates atom-j data through warp lanes with `shfl_sync`, and reduces
 with global `atomic_add!`, here the pair interactions are expressed as one
-dense broadcasted computation that XLA tiles onto the VPU, evaluated in
+dense broadcasted computation that XLA tiles and fuses, evaluated in
 row-blocks under `lax.map` to bound the working set.  Newton's-3rd-law lane
-shuffles and atomics have no TPU analog and are unnecessary: each atom row
+shuffles and atomics are unnecessary: each atom row
 computes its full interaction sum directly (every pair is evaluated twice,
 which is a bandwidth/FLOP trade XLA handles easily at the N where all-pairs
 is the right algorithm at all), and the per-atom reduction is an ordinary
@@ -15,7 +15,7 @@ deterministic `sum` — no atomics, bitwise-reproducible.
 Per-atom conventions match the reference exactly (nonbonded.jl:93-94,102-103):
 energy_i = ½ Σ_j E_ij, virial_i = ½ Σ_j (−r·E′)_ij, force_i = Σ_j f_ij.
 
-This path doubles as the fast oracle for the cell-list / Pallas paths and as
+This path doubles as the fast oracle for the cell-list / kernel paths and as
 the production path for small N.
 """
 

@@ -9,9 +9,9 @@
 - ``auto``          — neighbor list when the geometry supports it (box holds
                       ≥ 5³ half-cutoff cells), else all-pairs.
 
-The hand-written Pallas TPU production path is the dense-cell engine
+The production path is the dense-cell engine
 (`emdee_tpu.neighbors.cell_dense.make_cell_dense_sim`), which owns its own
-state layout; `emdee_tpu.utils.runner` picks it automatically.
+state layout; `emdee_tpu.utils.runner` drives it.
 
 The returned `Nonbonded` bundle exposes:
   init(positions)                  → aux   (neighbor state; host-side retry on
@@ -68,12 +68,6 @@ class NonbondedConfig:
     def __post_init__(self):
         if self.switch >= self.cutoff:
             raise ValueError("switch must be < cutoff")
-        if self.method == "pallas":
-            raise ValueError(
-                "the Pallas production path is the dense-cell engine — use "
-                "emdee_tpu.neighbors.cell_dense.make_cell_dense_sim(backend="
-                "'pallas') or cell_dense_molecular.dense_sim_from_system"
-            )
         if self.method not in ("auto", "allpairs", "neighbor_list"):
             raise ValueError(f"unknown nonbonded method {self.method!r}")
         if self.parity_mode and self.method not in ("allpairs", "auto"):

@@ -2,15 +2,14 @@
 
 The bridge the reference never built, one level further than `modelling`'s
 System→arrays methods: a typed, charged, bonded System running on the *fast*
-slot-grid engine (cell_dense.py + the Pallas kernel), not just the
+slot-grid engine (cell_dense.py and its GPU kernel), not just the
 gather-based neighbor-list path.
 
 Structure of a molecular force evaluation:
 
 1. **Pair pass in slot space** — LJ (+ DSF Coulomb over a charge slot field)
-   on the dense cell grid: `cell_dense_forces` or the Pallas kernel, both of
-   which now carry charges.  All pairs within the cutoff interact, including
-   bonded neighbors.
+   on the dense cell grid: `cell_dense_forces` or the GPU kernel, both of
+   which carry charges and exclusion tags.
 2. **Correction pass in atom space** — exclusions (1-2/1-3 removal, scaled
    1-4, reusing `apply_exclusion_corrections`) and bonded terms (harmonic
    bonds/angles, periodic torsions/impropers via `BondedSystem`) evaluated on
@@ -25,7 +24,7 @@ rule of the whole engine) while making exclusions and bonded forces exact.
 Parity anchor: the reference parses types/charges/bonded tables
 (modelling.jl:145-203) and builds typed frames (modelling.jl:235-349) but
 never connects them to its compute layer (SURVEY.md §1); this module is that
-connection, TPU-shaped.
+connection.
 """
 
 from __future__ import annotations
@@ -43,7 +42,6 @@ from emdee_tpu.neighbors.cell_dense import (
     _state_box,
     cell_dense_init,
     make_cell_dense_sim,
-    resolve_dense_backend,
     suggest_cell_dense_config,
 )
 from emdee_tpu.neighbors.neighbor_force import apply_exclusion_corrections
@@ -52,7 +50,6 @@ from emdee_tpu.potentials.lennard_jones import LennardJonesModel
 
 def build_exclusion_tables(
     num_atoms, pairs, lj_scales, coulomb_scales=None, pad_e=None, band_e=None,
-    bonds=None,
 ):
     """(N+1, E) atom-indexed exclusion tag tables (host-side, numpy).
 
@@ -61,24 +58,12 @@ def build_exclusion_tables(
     all-pad row indexed by invalid slots.  E = max partners per atom
     (`pad_e` to force a wider static width).
 
-    band_e: cap the kernel tag width (the pair pass costs ~3E VPU ops/pair,
+    band_e: cap the pair-pass tag width (the pair pass costs ~3E ops/pair,
     so protein-scale E≈16-24 would triple the hot loop).  A pair stays
-    in-band only if BOTH atoms' rows have space (the kernel checks whichever
+    in-band only if BOTH atoms' rows have space (the pass checks whichever
     atom lands as the pair's center); the remainder is returned as leftover
     (pairs, lj_scales, coulomb_scales) for the slot-space correction term.
-    With band_e set the return is ((ids, mlj, mcs), leftover).
-
-    bonds = (bond_pairs (B,2), k (B,), r0 (B,)): harmonic-bond parameters to
-    piggyback on the tag slots — a bond's (i,j) IS a 1-2 exclusion pair, so
-    the kernel's per-pair id match identifies it for free and two extra
-    weight tables (k, k·r0 at the matching slot) let the pair pass evaluate
-    the bond force in-kernel, removing the bond rows from the gather-bound
-    scatter path (53% of the bonded rows in water-dominated systems).
-    Bonded pairs are inserted FIRST (so they win band slots and sit in a
-    compact E_b-wide prefix), and the return grows to
-    (tabs, leftover, (kb, kr0, kr02) | None, absorbed (B,) bool) — leftover
-    is always present (empty when band_e is None); a bond is `absorbed`
-    only when its exclusion pair landed in-band AND it appeared in `pairs`."""
+    With band_e set the return is ((ids, mlj, mcs), leftover)."""
     pairs = np.asarray(pairs)
     lj_scales = np.asarray(lj_scales, np.float32)
     cs = None if coulomb_scales is None else np.asarray(coulomb_scales, np.float32)
@@ -86,28 +71,7 @@ def build_exclusion_tables(
     partners = [[] for _ in range(n)]
     leftover = []
     counts = np.zeros(n, np.int64)
-    order = range(len(pairs))
-    bond_of = {}
-    absorbed = None
-    if bonds is not None:
-        bond_pairs, bond_k, bond_r0 = bonds
-        bond_pairs = np.asarray(bond_pairs)
-        bond_k = np.asarray(bond_k, np.float32)
-        bond_r0 = np.asarray(bond_r0, np.float32)
-        absorbed = np.zeros(len(bond_pairs), bool)
-        for b in range(len(bond_pairs)):
-            bi, bj = int(bond_pairs[b, 0]), int(bond_pairs[b, 1])
-            bond_of[(min(bi, bj), max(bi, bj))] = b
-        is_bond = np.array(
-            [
-                (min(int(pairs[k, 0]), int(pairs[k, 1])),
-                 max(int(pairs[k, 0]), int(pairs[k, 1]))) in bond_of
-                for k in range(len(pairs))
-            ],
-            bool,
-        ) if len(pairs) else np.zeros(0, bool)
-        order = list(np.flatnonzero(is_bond)) + list(np.flatnonzero(~is_bond))
-    for k in order:
+    for k in range(len(pairs)):
         i, j = int(pairs[k, 0]), int(pairs[k, 1])
         if i >= n or j >= n:
             continue  # padding rows
@@ -115,13 +79,8 @@ def build_exclusion_tables(
         if band_e is not None and (counts[i] >= band_e or counts[j] >= band_e):
             leftover.append((i, j, lj_scales[k], 0.0 if s_c is None else s_c))
             continue
-        b = bond_of.get((min(i, j), max(i, j)))
-        kb = r0b = 0.0
-        if b is not None:
-            absorbed[b] = True
-            kb, r0b = float(bond_k[b]), float(bond_r0[b])
-        partners[i].append((j, lj_scales[k], s_c, kb, r0b))
-        partners[j].append((i, lj_scales[k], s_c, kb, r0b))
+        partners[i].append((j, lj_scales[k], s_c))
+        partners[j].append((i, lj_scales[k], s_c))
         counts[i] += 1
         counts[j] += 1
     e_n = max((len(p) for p in partners), default=0)
@@ -133,33 +92,17 @@ def build_exclusion_tables(
     ids = np.full((n + 1, e_n), -1.0, np.float32)
     mlj = np.zeros((n + 1, e_n), np.float32)
     mcs = np.zeros((n + 1, e_n), np.float32) if cs is not None else None
-    kb_t = np.zeros((n + 1, e_n), np.float32)
-    kr0_t = np.zeros((n + 1, e_n), np.float32)
-    kr02_t = np.zeros((n + 1, e_n), np.float32)
-    e_b = 0
     for i, plist in enumerate(partners):
-        for e, (j, s_lj, s_c, kb, r0b) in enumerate(plist):
+        for e, (j, s_lj, s_c) in enumerate(plist):
             ids[i, e] = float(j)
             mlj[i, e] = 1.0 - s_lj
             if mcs is not None:
                 mcs[i, e] = 1.0 - s_c
-            if kb:
-                kb_t[i, e] = kb
-                kr0_t[i, e] = kb * r0b
-                kr02_t[i, e] = kb * r0b * r0b
-                e_b = max(e_b, e + 1)
     tabs = (
         jnp.asarray(ids),
         jnp.asarray(mlj),
         None if mcs is None else jnp.asarray(mcs),
     )
-    bond_tabs = None
-    if e_b:
-        bond_tabs = (
-            jnp.asarray(kb_t[:, :e_b]),
-            jnp.asarray(kr0_t[:, :e_b]),
-            jnp.asarray(kr02_t[:, :e_b]),
-        )
     if leftover:
         lo = np.asarray([(i, j) for i, j, _, _ in leftover], np.int32)
         lo_lj = np.asarray([s for _, _, s, _ in leftover], np.float32)
@@ -168,42 +111,9 @@ def build_exclusion_tables(
         lo, lo_lj, lo_cs = np.zeros((0, 2), np.int32), np.zeros(0, np.float32), (
             None if cs is None else np.zeros(0, np.float32)
         )
-    if bonds is not None:
-        return tabs, (lo, lo_lj, lo_cs), bond_tabs, absorbed
     if band_e is None:
         return tabs
     return tabs, (lo, lo_lj, lo_cs)
-
-
-def _without_absorbed_bonds(bonded, absorbed):
-    """BondedSystem with the kernel-absorbed bonds dropped from the gather
-    path (angles/torsions shared).  `absorbed` indexes the VALID bonds in
-    table order; the padded table is rebuilt from the remainder."""
-    from emdee_tpu.potentials.bonded import BondTable
-
-    bt = bonded.bonds
-    bvalid = np.asarray(bt.valid)
-    keep_valid = np.zeros(len(bvalid), bool)
-    keep_valid[np.flatnonzero(bvalid)[~absorbed]] = True
-    nb = int(keep_valid.sum())
-    if nb == 0:
-        return bonded._replace(bonds=None)
-    cap = -(-nb // 8) * 8
-    pad = cap - nb
-    atoms = np.concatenate(
-        [np.asarray(bt.atoms)[keep_valid],
-         np.full((pad, 2), np.asarray(bt.atoms).max(), np.int64)]
-    )
-    length = np.concatenate([np.asarray(bt.length)[keep_valid], np.zeros(pad, np.float32)])
-    k = np.concatenate([np.asarray(bt.k)[keep_valid], np.zeros(pad, np.float32)])
-    return bonded._replace(
-        bonds=BondTable(
-            atoms=jnp.asarray(atoms, jnp.int32),
-            length=jnp.asarray(length, jnp.float32),
-            k=jnp.asarray(k, jnp.float32),
-            valid=jnp.asarray(np.arange(cap) < nb),
-        )
-    )
 
 
 def _split_exclusive_terms(bonded, leftover_pairs, num_atoms):
@@ -213,11 +123,8 @@ def _split_exclusive_terms(bonded, leftover_pairs, num_atoms):
     force row across ALL slot-space scatter sources (every bonded family
     plus the exclusion-leftover correction pairs).  Exclusive terms' scatter
     rows have globally unique targets, so they can be applied with a
-    scatter-SET into zeros instead of a scatter-ADD — measured 5.5 vs 17
-    ns/row on v5e (tools/perf_gather.py), a 3× cut on the dominant cost of
-    the bonded path.  In water-dominated systems with in-kernel bond
-    absorption the H-O-H angles (≈96% of remaining scatter rows) are all
-    exclusive: each water atom's only remaining term is its one angle.
+    scatter-SET into zeros instead of a scatter-ADD, which needs no
+    read-modify-write of its targets.
 
     Atom-space multiplicity is invariant under the per-rebin atom→slot
     remap (a bijection), so the split is computed once at build time.
@@ -338,26 +245,16 @@ def _merged_slot_binder(excl_sys, shared_sys, corr_pairs, num_atoms):
     return bind
 
 
-def make_exclusion_aux_fn(num_atoms, ids_tab, mlj_tab, mcs_tab, bond_tabs=None):
-    """aux_fn(state) → slot-space (ids, mlj, mcs[, (kb, kr0, kr02)]) tags.
+def make_exclusion_aux_fn(num_atoms, ids_tab, mlj_tab, mcs_tab):
+    """aux_fn(state) → slot-space (ids, mlj, mcs) tags.
 
     ONE (M³·C)-row gather from a single column-packed atom-indexed table,
     re-run after every rebin (slot↔atom binding only changes there) —
     amortized over the rebin interval instead of a per-step atom-space round
-    trip.  All tables ride one gather because TPU row-gather cost is
-    row-count-bound, not width-bound (tools/perf_gather.py: w3 ≈ w8 ≈ 6.5
-    ns/row): six separate (N+1, E) gathers paid the full per-row cost six
-    times — measured as the dominant slice of the molecular rebin boundary.
-
-    bond_tabs: optional (kb, kr0, kr02) harmonic-bond weight tables aligned
-    with the tag slots (see `build_exclusion_tables(bonds=...)`) — packed
-    alongside and appended as a 4th aux element for the Pallas kernels'
-    in-kernel bond evaluation."""
+    trip."""
     cols = [ids_tab, mlj_tab]
     if mcs_tab is not None:
         cols.append(mcs_tab)
-    if bond_tabs is not None:
-        cols.extend(bond_tabs)
     offs = np.cumsum([0] + [int(t.shape[-1]) for t in cols])
     packed = jnp.concatenate(cols, axis=-1)
 
@@ -365,15 +262,7 @@ def make_exclusion_aux_fn(num_atoms, ids_tab, mlj_tab, mcs_tab, bond_tabs=None):
         idx = jnp.minimum(state.atom_id, num_atoms)  # sentinel → pad row
         g = packed[idx]
         parts = [g[..., offs[i] : offs[i + 1]] for i in range(len(cols))]
-        it = iter(parts)
-        out = (
-            next(it),
-            next(it),
-            next(it) if mcs_tab is not None else None,
-        )
-        if bond_tabs is not None:
-            out += ((next(it), next(it), next(it)),)
-        return out
+        return parts[0], parts[1], parts[2] if mcs_tab is not None else None
 
     return aux_fn
 
@@ -436,9 +325,8 @@ def make_slot_pair_correction(
 
     def force_rows(pos_ext, slot_ij, box):
         """(idx, contrib) scatter rows — merged by the caller with the bonded
-        rows into one scatter-add (XLA's per-scatter fixed cost dominates a
-        few-thousand-pair table: measured 1.31 ms standalone vs ~0.1 ms when
-        riding the bonded scatter at the 97k molecular benchmark)."""
+        rows into one scatter-add (one scatter's fixed cost instead of
+        two)."""
         i, j, dv, r2, _, mre = _terms(pos_ext, slot_ij, box)
         f_ij = (mre / jnp.maximum(r2, 1e-30))[:, None] * dv
         return jnp.concatenate([i, j]), jnp.concatenate([-f_ij, f_ij])
@@ -498,14 +386,14 @@ def make_molecular_dense_sim(
 
     exclusion_mode:
       'kernel'     — exclusions as per-pair tag comparisons inside the pair
-                     pass (~3E VPU ops/pair; slot tags rebuilt once per
+                     pass (~3E ops/pair; slot tags rebuilt once per
                      rebin).  The fast path: no per-step atom-space round
-                     trip (measured 4.4 ms/step at 100k atoms).
+                     trip.
       'correction' — atom-space correction pass after the pair pass
                      (scatter → `apply_exclusion_corrections` → gather);
                      the portable reference implementation.
 
-    exclusion_band: cap the kernel tag width E (pair-pass cost ~3E ops/pair;
+    exclusion_band: cap the pair-pass tag width E (cost ~3E ops/pair;
     protein-scale E≈16-24 would triple the hot loop).  Pairs beyond the band
     are evaluated by a slot-space correction term (per-rebin slot bindings,
     per-pair gathers — no full-N round trip).  None = all pairs in-kernel.
@@ -536,37 +424,7 @@ def make_molecular_dense_sim(
                 if exclusion_scales_coulomb is not None
                 else exclusion_scales
             )
-        # In-kernel harmonic bonds: on the Pallas backends the bond force
-        # rides the exclusion-tag id match (build_exclusion_tables(bonds=…)),
-        # removing the bond rows from the gather-bound scatter path — the
-        # XLA backend keeps the full gather path (its pair loop carries no
-        # bond tags), so resolve the backend FIRST.
-        resolved = resolve_dense_backend(
-            config, backend, with_coulomb=coulomb is not None, with_excl=True,
-        )
-        absorb_bonds = (
-            bonded is not None
-            and bonded.bonds is not None
-            and resolved in ("pallas", "pallas_interpret", "pallas_streaming")
-        )
-        bonded_force_sys = bonded
-        bond_tabs = None
-        if absorb_bonds:
-            bt = bonded.bonds
-            bvalid = np.asarray(bt.valid)
-            bond_arg = (
-                np.asarray(bt.atoms)[bvalid],
-                np.asarray(bt.k)[bvalid],
-                np.asarray(bt.length)[bvalid],
-            )
-            tabs, leftover, bond_tabs, absorbed = build_exclusion_tables(
-                num_atoms, exclusion_pairs, exclusion_scales, cs_for_tables,
-                band_e=exclusion_band, bonds=bond_arg,
-            )
-            bonded_force_sys = _without_absorbed_bonds(bonded, absorbed)
-            if leftover[0].shape[0] == 0:
-                leftover = None
-        elif exclusion_band is not None:
+        if exclusion_band is not None:
             tabs, leftover = build_exclusion_tables(
                 num_atoms, exclusion_pairs, exclusion_scales, cs_for_tables,
                 band_e=exclusion_band,
@@ -578,7 +436,7 @@ def make_molecular_dense_sim(
             tabs = build_exclusion_tables(
                 num_atoms, exclusion_pairs, exclusion_scales, cs_for_tables,
             )
-        aux_fn = make_exclusion_aux_fn(num_atoms, *tabs, bond_tabs=bond_tabs)
+        aux_fn = make_exclusion_aux_fn(num_atoms, *tabs)
         corr = None
         if leftover is not None:
             corr = make_slot_pair_correction(
@@ -586,13 +444,10 @@ def make_molecular_dense_sim(
             )
 
         # Exclusive-term split: terms whose atoms appear in no other scatter
-        # row anywhere get the unique-target scatter-SET fast path (3× the
-        # scatter-add row rate; in absorbed-bond water systems that is the
-        # whole H-O-H angle table — ~96% of remaining rows).
+        # row anywhere get the unique-target scatter-SET path.
         excl_force_sys, shared_force_sys = _split_exclusive_terms(
-            bonded_force_sys
-            if bonded_force_sys is not None
-            and any(t is not None for t in bonded_force_sys)
+            bonded
+            if bonded is not None and any(t is not None for t in bonded)
             else None,
             leftover[0] if leftover is not None else None,
             num_atoms,
@@ -604,8 +459,7 @@ def make_molecular_dense_sim(
             # to SLOT indices once per rebin (`extra_aux_fn`), so every step
             # evaluates bonds/angles/torsions directly on the slot-layout
             # positions — per-term gathers/scatter-adds only, no full-N
-            # atom-space scatter/gather round trip (measured ~2 ms/step at
-            # 100k atoms on TPU).
+            # atom-space scatter/gather round trip.
             ns = config.num_slots
 
             def _atom_slot(state):
@@ -632,9 +486,7 @@ def make_molecular_dense_sim(
                 # there only feeds `valid=False` terms, whose energy (and
                 # therefore gradient) is select-masked to zero.  The FORCE
                 # path rebinds the exclusive/shared split of the force system
-                # and the correction pairs through ONE merged gather — with
-                # in-kernel bond absorption the bond table holds only the
-                # not-absorbed remainder (often none at all).
+                # and the correction pairs through ONE merged gather.
                 if binder is None:
                     return ((None, None), None)
                 bx, bs, cbind = binder(atom_slot)
@@ -656,10 +508,9 @@ def make_molecular_dense_sim(
                 # + recomputed backward); exclusive terms (globally unique
                 # scatter targets — see `_split_exclusive_terms`) go through
                 # ONE scatter-set, everything else through ONE merged
-                # scatter-add (per-scatter fixed cost dominates the small
-                # tables: the 4.5k-pair correction alone measured 1.31 ms as
-                # its own scatter).  The two row sets are disjoint except the
-                # pad row, where every contribution is exactly zero.
+                # scatter-add (one scatter's fixed cost for the small
+                # tables).  The two row sets are disjoint except the pad
+                # row, where every contribution is exactly zero.
                 f = jnp.zeros_like(pos)
                 if bx is not None:
                     idx, contrib = bonded_force_rows(pos, b, bx)
@@ -674,7 +525,6 @@ def make_molecular_dense_sim(
                     idxs.append(idx)
                     contribs.append(contrib)
                 if bx is None and not idxs:
-                    # every bond absorbed in-kernel, nothing else
                     return jnp.zeros_like(state.positions)
                 if idxs:
                     f = f.at[jnp.concatenate(idxs)].add(
@@ -689,11 +539,6 @@ def make_molecular_dense_sim(
                 pe = jnp.float32(0.0)
                 vir = jnp.float32(0.0)
                 if bonded is not None:
-                    # The FULL bonded system (including any bonds the force
-                    # kernel absorbed as tags): the energy path's pair terms
-                    # come from the bond-tag-free XLA engine, so the whole
-                    # bonded energy/virial belongs here — off the hot path,
-                    # the extra remap is irrelevant.
                     btabs_full = bonded.remap(_atom_slot(state))
                     pe = pe + btabs_full.energy(pos, b)
                     vir = vir + btabs_full.virial(pos, b)
@@ -704,7 +549,7 @@ def make_molecular_dense_sim(
                 return pe, vir
 
         return make_cell_dense_sim(
-            config, model, dt, backend=resolved, rebin=rebin, coulomb=coulomb,
+            config, model, dt, backend=backend, rebin=rebin, coulomb=coulomb,
             extra_forces=extra_forces, extra_energy=extra_energy, aux_fn=aux_fn,
             extra_aux_fn=extra_aux_fn, thermostat=thermostat, barostat=barostat,
         )
@@ -777,11 +622,11 @@ def dense_sim_from_system(
 ):
     """One-call System → dense-engine simulation.
 
-    exclusion_band="auto" caps the kernel tag width at 4 when the system's
-    natural width exceeds 8 (protein-scale E would both blow the ~3E-ops/pair
-    hot-loop cost and the kernel's VMEM center expansion, which carries 3E·C
-    tag rows); the remainder runs through the slot-space pair correction.
-    Pass None to force everything in-kernel, or an int to pick the band.
+    exclusion_band="auto" caps the pair-pass tag width at 4 when the
+    system's natural width exceeds 8 (protein-scale E would blow the
+    ~3E-ops/pair hot-loop cost); the remainder runs through the slot-space
+    pair correction.  Pass None to keep every pair in the pass, or an int to
+    pick the band.
 
     Returns (state, rollout, energy, config).  Uses Å/amu/e units with
     kC = 1389.35456 (kJ/mol·Å·e²) so energies come out in kJ/mol when the

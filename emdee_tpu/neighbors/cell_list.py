@@ -1,6 +1,6 @@
 """Fixed-shape bin-and-sort cell lists.
 
-The TPU-native re-design of the reference's linked-cell CUDA machinery
+The fixed-shape re-design of the reference's linked-cell CUDA machinery
 (cells.jl).  The reference builds per-cell linked lists with pointer-chasing
 kernels (`distribute!` cells.jl:46-60), incrementally splices movers through
 shared-memory baskets (`clean_cells!`/`collect_baskets!`/`renew_cells!`

@@ -4,7 +4,7 @@ The production O(N) force pass: a per-atom gather of neighbor positions and
 parameters followed by vectorized pair math and an ordinary (deterministic)
 reduction over the neighbor axis.  This is the role `compute_tile!` plays in
 the reference (nonbonded.jl:44-107); warp shuffles and atomicAdd become a
-dense gather and a sum — no atomics exist or are needed on TPU.
+dense gather and a sum — no atomics are needed.
 
 Exclusions (bonded 1-2/1-3 pairs, scaled 1-4 pairs from the molecular graph)
 are handled by *correction*, not by masks in the hot loop: the main pass

@@ -2,8 +2,8 @@
 
 This completes what the reference left half-finished: `find_action_partners1!`
 (cells.jl:224-297) gathers per-atom neighbor candidates into shared-memory
-buffers with an unimplemented overflow branch (cells.jl:251,265).  The
-TPU-shaped version is dense and static:
+buffers with an unimplemented overflow branch (cells.jl:251,265).  This
+version is dense and static:
 
 - candidates = the (S+1)·capacity atoms of an atom's own cell plus its
   full-shell stencil cells, read straight out of the dense cell table,
@@ -16,7 +16,7 @@ TPU-shaped version is dense and static:
 
 The full shell (not the reference's Newton-3 half shell) is deliberate: every
 pair appears in both atoms' lists, so the force pass is a pure per-atom
-gather+reduce — no scatter-add in the hot loop, deterministic on TPU.
+gather+reduce — no scatter-add in the hot loop, deterministic.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def estimate_max_neighbors(
     num_atoms: int, box: float, list_cutoff: float, multiplier: float = 1.4, minimum: int = 8
 ) -> int:
     """Static neighbor capacity from mean density: ρ·(4/3)π·rc_list³·mult,
-    rounded up to a multiple of 8 (TPU sublane width)."""
+    rounded up to a multiple of 8."""
     density = num_atoms / float(box) ** 3
     mean = density * (4.0 / 3.0) * np.pi * list_cutoff**3
     k = max(minimum, int(np.ceil(mean * multiplier)))

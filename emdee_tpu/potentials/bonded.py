@@ -175,7 +175,7 @@ class BondedSystem(NamedTuple):
 
 # ---------------------------------------------------------------------------
 # Analytic forces (hand gradients): one gather set + one scatter set, vs
-# autodiff's forward + recomputed backward — halves the TPU gather/scatter
+# autodiff's forward + recomputed backward — halves the gather/scatter
 # traffic that dominates bonded-term cost.  Differential-tested against
 # jax.grad of the energies above.
 # ---------------------------------------------------------------------------
@@ -188,8 +188,7 @@ def _scatter_add3(forces, idx, contrib):
 def bond_force_rows(positions, box, table: BondTable):
     """(idx, contrib) scatter rows of the bond forces — callers combine the
     rows of EVERY term family (and the exclusion leftover correction) into
-    one scatter-add: XLA's per-scatter fixed cost dominates small tables
-    (measured 73 ns/row for a 4.5k-pair scatter vs 9 ns/row at 65k rows)."""
+    one scatter-add: XLA's per-scatter fixed cost dominates small tables."""
     n = positions.shape[0]
     i = jnp.minimum(table.atoms[:, 0], n - 1)
     j = jnp.minimum(table.atoms[:, 1], n - 1)

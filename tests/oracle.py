@@ -11,27 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-
-def lj_interaction_f64(r2, rc, rs, half_sigma_i, twice_sqrt_eps_i,
-                       half_sigma_j, twice_sqrt_eps_j, parity_mode=False):
-    """Scalar/array LJ pair math in float64 (lennard_jones.jl:25-42 semantics)."""
-    rc2, rs2 = rc * rc, rs * rs
-    inv_d2 = 1.0 / (rc2 - rs2)
-    sigma = half_sigma_i + half_sigma_j
-    eps4 = twice_sqrt_eps_i * twice_sqrt_eps_j
-    s2 = sigma * sigma / r2
-    s6 = s2 * s2 * s2
-    e4s6 = eps4 * s6
-    E = e4s6 * (s6 - 1.0)
-    mrE = 6.0 * e4s6 * (2.0 * s6 - 1.0)
-    x = (r2 - rs2) * inv_d2
-    if parity_mode:
-        x = x * 0.5 * (np.sign(x) - np.sign(x - 1.0))
-    else:
-        x = np.clip(x, 0.0, 1.0)
-    g = 1.0 + x * x * x * (15.0 * x - 6.0 * x * x - 10.0)
-    mrg = 60.0 * x * x * (1.0 - x) ** 2 * inv_d2 * r2
-    return E * g, mrE * g + E * mrg
+from emdee_tpu.utils.reference_f64 import lj_interaction_f64
 
 
 def allpairs_oracle(positions, L, rc, rs, half_sigma, twice_sqrt_eps,

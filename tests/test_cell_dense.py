@@ -152,6 +152,84 @@ def test_rebin_shift_matches_sort():
     np.testing.assert_array_equal(_by_atom(sa, n, fa), _by_atom(sb, n, fb))
 
 
+def _drifted_state(n, seed, charges=False, varied_params=False):
+    """A bound state drifted in slot space (after binning) so that a real
+    fraction of atoms cross their cell faces, some across the periodic
+    seam, exactly like motion between rebins."""
+    pos, box = cubic_lattice(n, 0.65, jitter=0.2, seed=seed)
+    vel = maxwell_boltzmann(n, 1.3, seed=seed + 1)
+    rng = np.random.default_rng(seed)
+    if varied_params:
+        params = lennard_jones_atom(rng.uniform(0.8, 1.2, n), rng.uniform(0.9, 1.1, n))
+    else:
+        params = lennard_jones_atom(np.ones(n), np.ones(n))
+    config = suggest_cell_dense_config(n, box, cutoff=2.5, switch=2.0, skin=0.35)
+    q = rng.uniform(-0.5, 0.5, n).astype(np.float32) if charges else None
+    st = cell_dense_init(pos, vel, np.ones(n), params, config, charges=q)
+    assert not bool(st.overflow)
+    vmax = float(jnp.max(jnp.abs(st.velocities)))
+    drift = (0.45 * config.skin / vmax) * st.velocities
+    st = st._replace(positions=jnp.where(st.valid[..., None], st.positions + drift, 0.0))
+    return st, config
+
+
+@pytest.mark.parametrize("case", ["plain", "all_fields", "uniform_fastpath"])
+def test_rebin_shift_bitexact_vs_sort(case):
+    """Per atom, the shift rebin (log-shift rounds, bf16 prefix-rank matrix
+    product) reproduces the sort rebin bit for bit on every routed field:
+    plain LJ, every optional field (charges, per-atom parameters, carried
+    forces), and the uniform fast path that rebuilds constants instead of
+    routing them."""
+    from emdee_tpu.neighbors.cell_dense import _rebin, _rebin_shift
+
+    full = case == "all_fields"
+    st, config = _drifted_state(2500, seed=11, charges=full, varied_params=full)
+    n = int(st.valid.sum())
+    f = None
+    if full:
+        rng = np.random.default_rng(3)
+        f = 0.1 * jnp.asarray(rng.normal(size=st.positions.shape), jnp.float32)
+    kw = {"uniform_params": (0.5, 2.0), "uniform_mass": 1.0} if case == "uniform_fastpath" else {}
+    if f is None:
+        a, b = _rebin(st, config), _rebin_shift(st, config, **kw)
+    else:
+        (a, fa), (b, fb) = _rebin(st, config, forces=f), _rebin_shift(st, config, forces=f)
+        np.testing.assert_array_equal(_by_atom(a, n, fa), _by_atom(b, n, fb))
+    assert not bool(a.overflow) and not bool(b.overflow)
+    assert int(b.valid.sum()) == n
+    cell = np.repeat(np.arange(config.num_cells), config.capacity).reshape(st.valid.shape)
+    np.testing.assert_array_equal(_by_atom(a, n, cell), _by_atom(b, n, cell))
+    fields = ["positions", "velocities", "inv_masses", "half_sigma", "twice_sqrt_eps"]
+    for fld in fields + (["charges"] if full else []):
+        np.testing.assert_array_equal(
+            _by_atom(a, n, getattr(a, fld)), _by_atom(b, n, getattr(b, fld)), err_msg=fld
+        )
+    # The rebin must have routed something for this to be a test.
+    moved = int(jnp.sum((b.atom_id != st.atom_id) & b.valid))
+    assert moved > 10, f"fixture too static: only {moved} slots changed"
+
+
+def test_rollout_shift_rebin_matches_sort():
+    """A short NVE rollout where only the rebin differs: the same cell
+    assignment at every rebin, so the trajectories agree up to the f32 sum
+    order of atoms within a cell."""
+    n = 1500
+    pos, box = cubic_lattice(n, 0.7, jitter=0.1, seed=7)
+    vel = maxwell_boltzmann(n, 1.0, seed=8)
+    params = lennard_jones_atom(np.ones(n), np.ones(n))
+    config = suggest_cell_dense_config(n, box, cutoff=2.5, switch=2.0, skin=0.35)
+    model = LennardJonesModel.create(2.5, 2.0)
+    st = cell_dense_init(pos, vel, np.ones(n), params, config)
+    outs = {}
+    for rebin in ("shift", "sort"):
+        rollout, _ = make_cell_dense_sim(config, model, 0.004, backend="xla", rebin=rebin)
+        out = rollout(st, num_steps=12, rebin_every=3)
+        assert not bool(out.overflow)
+        outs[rebin] = gather_dense_atoms(out, n)
+    np.testing.assert_allclose(outs["shift"][0], outs["sort"][0], atol=1e-5)
+    np.testing.assert_allclose(outs["shift"][1], outs["sort"][1], atol=1e-4)
+
+
 def test_rebin_shift_flags_fast_atom():
     """An atom that jumps more than one cell between rebins must trip the
     sticky overflow flag (the shift rebin's staleness contract)."""
@@ -240,12 +318,12 @@ def test_spill_rollout_matches_allpairs():
 def test_init_wraps_out_of_range_positions():
     """PDB files routinely contain coordinates just outside [0, L); binning
     wraps them to a cell but the STORED coordinate must be wrapped too, or
-    every ghost-shift-based path (Pallas kernels, grid-sharded halos) places
-    the atom a full box from its seam neighbors and silently drops those
-    pairs (the XLA backend min-images each delta and masks the bug).
+    every image-shift-based path (the GPU kernel, grid-sharded halos)
+    places the atom a full box from its seam neighbors and silently drops
+    those pairs (the XLA backend min-images each delta and masks the bug).
     Regression: shift a band of atoms by ±L at init and require identical
-    forces from the Pallas kernel."""
-    from emdee_tpu.neighbors.pallas_cell_kernel import pallas_cell_forces
+    forces from the kernel (interpret mode)."""
+    from emdee_tpu.neighbors.cell_pair_kernel import cell_pair_forces, static_lj
 
     pos, vel, L, params, config, model = _setup(n=1728)
     n = pos.shape[0]
@@ -269,9 +347,8 @@ def test_init_wraps_out_of_range_positions():
     )
 
     f_xla, _, _ = cell_dense_forces(st_off, model, config, compute_energy=True)
-    f_pal, _, _ = pallas_cell_forces(st_off, model, config, compute_energy=True,
-                                     interpret=True)
-    np.testing.assert_allclose(np.asarray(f_pal), np.asarray(f_xla), atol=1e-2)
+    f_ker = cell_pair_forces(st_off, config, static_lj(model), interpret=True)
+    np.testing.assert_allclose(np.asarray(f_ker), np.asarray(f_xla), atol=1e-2)
 
 
 def test_leapfrog_nve_matches_kdk():
@@ -300,36 +377,3 @@ def test_leapfrog_nve_matches_kdk():
     pe0, _, ke0 = (float(x) for x in energy(st))
     pe1, _, ke1 = (float(x) for x in energy(out_lf))
     assert abs((pe1 + ke1) - (pe0 + ke0)) / max(abs(pe0 + ke0), 1.0) < 2e-4
-
-
-def test_component_carry_matches_stacked_leapfrog():
-    """The component-layout scan carry (seven (M³, C) arrays instead of
-    (M³, C, 3) tensors — the r5 layout-glue fix, docs/PERF.md) must
-    reproduce the stacked leapfrog path: the kernel and rebin transport are
-    bit-identical, the integrator chains agree up to XLA's per-graph fma
-    association (≤ 2 ulp/step)."""
-    from emdee_tpu.neighbors.cell_dense import detect_uniform_params
-
-    pos, vel, L, params, config, model = _setup(n=1728, density=0.6)
-    n = pos.shape[0]
-    uni = detect_uniform_params(params)
-    st = cell_dense_init(pos, vel, np.ones(n), params, config)
-    assert not bool(st.overflow)
-
-    outs = {}
-    for cc in (True, False):
-        rollout, energy = make_cell_dense_sim(
-            config, model, dt=0.004, backend="pallas_interpret",
-            uniform_params=uni, uniform_mass=1.0, component_carry=cc,
-        )
-        out = rollout(st, num_steps=24, rebin_every=6)
-        assert not bool(out.overflow)
-        assert int(out.step) == 24
-        pe, _, ke = (float(x) for x in energy(out))
-        outs[cc] = (*gather_dense_atoms(out, n), pe, ke)
-
-    p_cc, v_cc, pe_cc, ke_cc = outs[True]
-    p_st, v_st, pe_st, ke_st = outs[False]
-    np.testing.assert_allclose(p_cc, p_st, atol=2e-5)
-    np.testing.assert_allclose(v_cc, v_st, atol=2e-4)
-    assert abs(pe_cc - pe_st) / abs(pe_st) < 1e-5

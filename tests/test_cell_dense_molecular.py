@@ -138,7 +138,7 @@ def test_molecular_dense_spill_matches_list_path():
     bonded): tight capacity, no overflow, trajectory matches the list path.
     This is the production geometry for real-unit water systems — spill cuts
     capacity from mean+2.5σ to mean+0.5σ and pair work scales as capacity²
-    (97k dioxin-in-water: 10.0 → 6.3 ms/step on v5e)."""
+    (spill cuts the capacity that pair work scales with quadratically)."""
     from emdee_tpu.neighbors.cell_dense import gather_dense_atoms
     from emdee_tpu.neighbors.cell_dense_molecular import dense_sim_from_system
 
@@ -289,80 +289,3 @@ def test_exclusion_band_split_matches_full_width():
     pb, vb = gather_dense_atoms(out_b, n)
     np.testing.assert_allclose(pb % box, pa % box, atol=2e-3)
     np.testing.assert_allclose(vb, va, atol=5e-2)
-
-
-def test_build_exclusion_tables_bond_piggyback():
-    """bonds=… inserts bonded pairs first, aligns (k, k·r0, k·r0²) weights
-    with the tag slots, and reports absorption per bond."""
-    from emdee_tpu.neighbors.cell_dense_molecular import build_exclusion_tables
-
-    n = 6
-    #             0-1 bond, 0-2 bond, 1-2 angle pair (not a bond), 3-4 bond
-    pairs = np.asarray([[1, 2], [0, 1], [0, 2], [3, 4]], np.int32)
-    scales = np.zeros(4, np.float32)
-    bonds = (
-        np.asarray([[0, 1], [2, 0], [3, 4], [4, 5]], np.int32),  # 4-5 not excluded
-        np.asarray([100.0, 200.0, 300.0, 400.0], np.float32),
-        np.asarray([1.0, 1.5, 2.0, 2.5], np.float32),
-    )
-    tabs, leftover, bond_tabs, absorbed = build_exclusion_tables(
-        n, pairs, scales, None, bonds=bonds
-    )
-    ids, mlj, mcs = tabs
-    kb, kr0, kr02 = (np.asarray(t) for t in bond_tabs)
-    # 4-5 has no exclusion pair → never absorbed; the rest are in-band.
-    np.testing.assert_array_equal(absorbed, [True, True, True, False])
-    assert leftover[0].shape[0] == 0
-    ids = np.asarray(ids)
-    # Bonded pairs occupy the slot prefix: atom 0's first two tags are its
-    # bonds (1 and 2, insertion order), the weights sit at the same slots.
-    assert set(ids[0, :2].astype(int)) == {1, 2}
-    for e in range(2):
-        j = int(ids[0, e])
-        k_expect, r0_expect = (100.0, 1.0) if j == 1 else (200.0, 1.5)
-        assert kb[0, e] == pytest.approx(k_expect)
-        assert kr0[0, e] == pytest.approx(k_expect * r0_expect)
-        assert kr02[0, e] == pytest.approx(k_expect * r0_expect**2)
-    # The non-bond exclusion (1-2) carries zero bond weight at its slot.
-    e12 = int(np.flatnonzero(ids[1] == 2.0)[0])
-    assert kb[1, e12] == 0.0
-    # E_b trims to the bond prefix width.
-    assert kb.shape[-1] <= ids.shape[-1]
-
-
-@pytest.mark.full
-def test_inkernel_bond_tags_match_gather_path():
-    """In-kernel harmonic bonds (tag piggyback, Pallas interpret mode) must
-    reproduce the XLA gather-path trajectory and energy bookkeeping."""
-    from emdee_tpu.neighbors.cell_dense import gather_dense_atoms
-    from emdee_tpu.neighbors.cell_dense_molecular import dense_sim_from_system
-
-    system = _fixture_system()
-    n = len(system)
-    box = float(system.box_lengths[0])
-    rng = np.random.default_rng(23)
-    vel = rng.normal(scale=0.05, size=(n, 3))
-    dt, steps = 2e-4, 8
-
-    outs = {}
-    for backend in ("pallas_interpret", "xla"):
-        st, roll, energy, _ = dense_sim_from_system(
-            system, cutoff=7.0, switch=6.0, dt=dt, skin=1.0, velocities=vel,
-            backend=backend,
-        )
-        assert not bool(st.overflow)
-        pe = float(energy(st)[0])
-        out = roll(st, num_steps=steps, rebin_every=4)
-        assert not bool(out.overflow)
-        outs[backend] = (pe, *gather_dense_atoms(out, n))
-
-    pe_k, pos_k, vel_k = outs["pallas_interpret"]
-    pe_x, pos_x, vel_x = outs["xla"]
-    # Energy bookkeeping is backend-independent (XLA pair pass + full bonded
-    # tables in both cases).
-    assert pe_k == pytest.approx(pe_x, rel=1e-6)
-    # Trajectories: interpret mode uses exact division, so the only
-    # differences are f32 summation orders (incl. the k·r0·r − k·r²
-    # cancellation form of the in-kernel bond force).
-    np.testing.assert_allclose(pos_k % box, pos_x % box, atol=2e-3)
-    np.testing.assert_allclose(vel_k, vel_x, atol=5e-2)

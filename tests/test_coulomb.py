@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 from emdee_tpu.neighbors.api import NonbondedConfig, make_force_fn
-from emdee_tpu.potentials.coulomb import DSFCoulomb, coulomb_interaction
+from emdee_tpu.potentials.coulomb import DSFCoulomb, coulomb_interaction, erfc_chebyshev
 from emdee_tpu.potentials.lennard_jones import lennard_jones_atom
 from emdee_tpu.utils.lattice import cubic_lattice
 from tests.conftest import reference_data_path
@@ -32,6 +32,30 @@ def test_dsf_matches_f64():
         e64, mre64 = _dsf_f64(r, 3.0, 0.3, 0.8 * -0.4)
         assert float(e) == pytest.approx(e64, abs=2e-6), r
         assert float(mre) == pytest.approx(mre64, abs=2e-6), r
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (1.0, 3.0), (3.0, 6.0)])
+def test_erfc_chebyshev_matches_erfc(lo, hi):
+    """The kernel's erfc (exp and arithmetic only) keeps the float64 erfc's
+    relative accuracy to ~1e-6 over the α·r range DSF evaluates."""
+    x = np.linspace(lo, hi, 257)
+    got = np.asarray(erfc_chebyshev(jnp.asarray(x, jnp.float32)), np.float64)
+    want = np.array([math.erfc(v) for v in x])
+    assert np.max(np.abs(got - want) / want) < 2e-6
+
+
+@pytest.mark.parametrize("r", [0.8, 1.7, 2.9])
+def test_dsf_with_kernel_erfc(r):
+    """`coulomb_interaction(..., erfc_fn=erfc_chebyshev)` — the form the GPU
+    kernel evaluates — agrees with the float64 DSF pair."""
+    model = DSFCoulomb.create(3.0, alpha=0.3, coulomb_constant=1.0)
+    e, mre = coulomb_interaction(
+        jnp.float32(r * r), model, jnp.float32(1.0), jnp.float32(-0.5),
+        erfc_fn=erfc_chebyshev,
+    )
+    e_ref, mre_ref = _dsf_f64(r, 3.0, 0.3, -0.5)
+    assert float(e) == pytest.approx(e_ref, rel=1e-5, abs=1e-7)
+    assert float(mre) == pytest.approx(mre_ref, rel=1e-5, abs=1e-7)
 
 
 def test_dsf_smooth_at_cutoff():

@@ -1,6 +1,6 @@
 """Multi-device tests on the 8-way virtual CPU mesh (conftest sets
-xla_force_host_platform_device_count=8) — the TPU-world answer to testing
-distributed code without a cluster (SURVEY.md §4)."""
+xla_force_host_platform_device_count=8) — distributed code tested without a
+cluster (SURVEY.md §4)."""
 
 import jax
 import jax.numpy as jnp

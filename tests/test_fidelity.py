@@ -1,5 +1,5 @@
 """Fidelity gates from BASELINE.md: bitwise-reproducibility of the engines
-(SURVEY §5 — determinism is the TPU answer to the reference's atomics/race
+(SURVEY §5 — determinism is the answer to the reference's atomics/race
 story) and the 1e-6 NVE drift target measured against the f64 oracle."""
 
 import jax
